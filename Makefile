@@ -6,80 +6,51 @@
 PY ?= python
 
 .PHONY: test run-cora run-citeseer run-pubmed run-reddit run-products \
-        run-cora-gat run-citeseer-gat run-reddit-gat scale-demo bench perf accuracy \
-        tuning layout golden scaling plots native clean evidence
+        run-cora-gat run-citeseer-gat run-reddit-gat-coo bench perf accuracy \
+        tuning layout golden scaling smoke kernels mesh-onechip native clean
 
 test:
 	$(PY) -m pytest tests/ -x -q
 
 run-cora:
-	$(PY) -m parallel_gcn_tpu cora
+	$(PY) -m parallel_gcn cora
 
 run-citeseer:
-	$(PY) -m parallel_gcn_tpu citeseer
+	$(PY) -m parallel_gcn citeseer
 
 # pubmed/reddit feature blobs are not shipped; these run the stand-ins
 # (synth-pubmed = real graph + synthetic features; synth-reddit = generated)
 run-pubmed:
-	$(PY) -m parallel_gcn_tpu synth-pubmed
+	$(PY) -m parallel_gcn synth-pubmed
 
 run-reddit:
-	$(PY) -m parallel_gcn_tpu synth-reddit
+	$(PY) -m parallel_gcn synth-reddit
 
-# beyond-reference scale demo (ogbn-products scale, 2.45M nodes / 126M edges)
+# beyond-reference scale (ogbn-products scale, 2.45M nodes / 124M edges)
 run-products:
-	$(PY) -m parallel_gcn_tpu synth-products
+	$(PY) -m parallel_gcn synth-products
 
 # beyond-reference model family: GAT (models/gat.py, arXiv:1710.10903) on the
 # same data layer + trainer; paper-style config (8 heads x 8 per-head dims)
 GAT_ARGS = model=gat heads=8 hidden_dims=8 dropouts=0.6,0.6 attn_dropout=0.6 \
            learning_rate=0.005 epochs=300 early_stopping=30
 run-cora-gat:
-	$(PY) -m parallel_gcn_tpu cora $(GAT_ARGS)
+	$(PY) -m parallel_gcn cora $(GAT_ARGS)
 run-citeseer-gat:
-	$(PY) -m parallel_gcn_tpu citeseer $(GAT_ARGS) compute_dtype=float32
-# attention at reddit scale on one chip: fused block-sparse tile attention
-# (ops/tile_attention.py) over the dataset's tuned int8 pack — 0.54 s/epoch
-# eager (PERFORMANCE.md; the params file already sets backend=hybrid+tiles).
-# mode=eager pinned: the whole-run scan of this route faults the worker at
-# this scale (round-5 measured; the HBM guard also forces eager when the
-# device reports no memory limit). For a fused scan at 11.8M edges use the
-# mesh rect-tile route (0.37 s/epoch, harness/mesh_onechip.py)
-run-reddit-gat:
-	$(PY) -m parallel_gcn_tpu synth-reddit model=gat heads=2 hidden_dims=32 \
-	  dropouts=0.0,0.1 epochs=100 early_stopping=0 mode=eager
-# the unguarded fused scan: 412 ms/epoch measured (24% faster than eager)
-# but accepts the intermittent-worker-fault risk the guard exists for
-run-reddit-gat-scan:
-	$(PY) -m parallel_gcn_tpu synth-reddit model=gat heads=2 hidden_dims=32 \
-	  dropouts=0.0,0.1 epochs=100 early_stopping=0 gat_scan_check=false
-# mesh GAT: the SAME fused tile attention sharded over gat_mesh_pack rect
-# slabs (parallel/partition.py + ops/tile_attention.gat_attend_rect); falls
-# back to a virtual CPU mesh when chips are short
-run-cora-gat-mesh:
-	$(PY) -m parallel_gcn_tpu cora model=gat heads=2 hidden_dims=8 \
-	  dropouts=0.1,0.1 epochs=30 early_stopping=0 n_devices=4 \
-	  backend=hybrid halo=boundary
-# the COO fallback path (for graphs without tile packs): remat + streaming
-# chunked edge softmax, 16.6 s/epoch. Its fused scan EXECUTES in the
-# round-5 environment (5.6 GB epoch-invariant temps) but saves only the
-# ~0.1 s/epoch dispatch on a 16.6 s epoch; eager kept for the guard-free
-# deterministic path
+	$(PY) -m parallel_gcn citeseer $(GAT_ARGS) compute_dtype=float32
+# attention at reddit scale: the COO route with remat + streaming chunked
+# edge softmax (GAT has no tile route)
 run-reddit-gat-coo:
-	$(PY) -m parallel_gcn_tpu synth-reddit model=gat heads=2 hidden_dims=32 \
+	$(PY) -m parallel_gcn synth-reddit model=gat heads=2 hidden_dims=32 \
 	  dropouts=0.0,0.1 epochs=100 early_stopping=0 mode=eager \
 	  backend=segment reorder=none remat=true edge_chunk=1048576 \
 	  compute_dtype=bfloat16
 
-# products-scale multi-chip memory demonstration (adaptive push/pull halo)
-scale-demo:
-	$(PY) harness/scale_demo.py synth-products --devices 8 --step-hidden 64
-
 bench:
 	$(PY) bench.py
 
-# the mesh path on the REAL chip: 1-device mesh, fused runs, sharding tax
-# vs plain fit (GCN hybrid slabs + GAT rect tile attention)
+# the mesh path on one GPU: 1-device mesh, fused runs, sharding tax vs
+# plain fit (GCN hybrid slabs + GAT over the COO partition)
 mesh-onechip:
 	$(PY) harness/mesh_onechip.py
 
@@ -98,25 +69,18 @@ layout:
 golden:
 	$(PY) harness/performance_golden.py
 
-plots:
-	$(PY) harness/plots.py
-
 scaling:
-	$(PY) harness/scaling.py synth-medium --devices 1,2,4,8
+	$(PY) harness/scaling.py synth-medium --devices 1,2,4
 
-# Regenerate every doc-cited evidence artifact with the CURRENT harness code
-# and fail on format drift vs what is committed (VERDICT r4 item 8: three
-# rounds shipped snapshots whose output/ lagged the code that claims to
-# write it). Run on the real chip before the end-of-round commit.
-evidence:
-	$(PY) harness/performance.py
-	$(PY) harness/accuracy.py
-	$(PY) harness/plots.py
-	$(PY) harness/evidence_check.py
+smoke:
+	$(PY) chip_smoke.py
+
+kernels:
+	$(PY) harness/kernel_bench.py
 
 native:
 	$(MAKE) -C csrc
 
 clean:
-	rm -rf output .pytest_cache parallel_gcn_tpu/data/_native*.so
+	rm -rf output .pytest_cache parallel_gcn/data/_native*.so
 	find . -name __pycache__ -type d -exec rm -rf {} +

@@ -1,13 +1,13 @@
 // Native dataset loader for the .graph/.svmlight/.split format.
 //
-// The TPU-native counterpart of the reference's C++ Parser
+// The counterpart of the reference's C++ Parser
 // (reference: src/parser.cpp — parseGraph/parseNode/parseSplit +
 // calculateGraphValues): builds the self-loop-inclusive CSR, the sparse
 // feature CSR (with optional NO_FEATURE-style binarization), the split vector,
 // and precomputes the symmetric-normalized adjacency values
 // 1/sqrt(deg(src)*deg(dst)). Exposed through a C ABI consumed via ctypes
-// (parallel_gcn_tpu/data/native.py); the pure-Python reader in
-// parallel_gcn_tpu/data/parser.py is the semantic spec and fallback.
+// (parallel_gcn/data/native.py); the pure-Python reader in
+// parallel_gcn/data/parser.py is the semantic spec and fallback.
 //
 // Parsing is a single pass over an fread-slurped buffer with hand-rolled
 // integer/float scanning — ~20x faster than the Python reader on reddit-scale

@@ -3,7 +3,7 @@ methodology (test/tuning_accuracy.cpp:156-185): run each config with N random
 seeds and report mean/max/sd of the final validation accuracy (plus test
 accuracy, which the reference reports separately in Table 5).
 
-TPU-native twist: all N seeds train simultaneously via jax.vmap over the fused
+Twist: all N seeds train simultaneously via jax.vmap over the fused
 whole-run program — 20 seeds cost barely more wall-clock than one.
 
 Usage:
@@ -12,8 +12,8 @@ Usage:
 ``--set`` applies CLI-style config overrides to every dataset — e.g.
 ``--set model=gat heads=8 hidden_dims=8 attn_dropout=0.6`` sweeps the GAT
 family with the same 20-seed methodology (results then go to
-output/accuracy_tpu_gat.txt via --tag).
-Writes output/accuracy_tpu.txt and prints a comparison against the published
+output/accuracy_gat.txt via --tag).
+Writes output/accuracy.txt and prints a comparison against the published
 numbers (BASELINE.md).
 """
 
@@ -30,11 +30,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from parallel_gcn_tpu.config import default_params_path, load_config
-from parallel_gcn_tpu.data.parser import TEST, prepare_device_dataset
-from parallel_gcn_tpu.train import init_model_params
-from parallel_gcn_tpu.optim import init_adam
-from parallel_gcn_tpu.train import _make_scan_run, build_model, make_eval_fn, preaggregate_input
+from parallel_gcn.config import default_params_path, load_config
+from parallel_gcn.data.parser import TEST, prepare_device_dataset
+from parallel_gcn.train import init_model_params
+from parallel_gcn.optim import init_adam
+from parallel_gcn.train import _make_scan_run, build_model, make_eval_fn, preaggregate_input
 
 # published val-accuracy mean±sd with tuned params (report p.13 Table 4)
 PUBLISHED_VAL = {"citeseer": (81.46, 0.495), "cora": (88.42, 0.297), "pubmed": (90.01, 0.314)}
@@ -47,11 +47,11 @@ def run_seeds(dataset: str, n_seeds: int, epochs: int | None, base_seed: int = 0
     if epochs:
         cfg.gcn.epochs = epochs
     cfg.train.verbose = False
-    cfg.tpu.matmul_precision = "default"
+    cfg.exec.matmul_precision = "default"
 
     ds, dds = prepare_device_dataset(cfg, dataset)
     model = build_model(cfg, dds)
-    if cfg.tpu.input_preagg:
+    if cfg.exec.input_preagg:
         model, dds = preaggregate_input(model, dds)
     run = _make_scan_run(model, cfg, dds)
     test_fn = make_eval_fn(model, cfg, dds, TEST)
@@ -98,7 +98,7 @@ def main() -> int:
     ap.add_argument("--tag", default="",
                     help="suffix for the output file name")
     args = ap.parse_args()
-    from parallel_gcn_tpu.config import parse_override
+    from parallel_gcn.config import parse_override
 
     overrides = {}
     for kv in args.set:
@@ -130,7 +130,7 @@ def main() -> int:
         print(line)
         rows.append(line)
 
-    out = f"output/accuracy_tpu{('_' + args.tag) if args.tag else ''}.txt"
+    out = f"output/accuracy{('_' + args.tag) if args.tag else ''}.txt"
     with open(out, "w") as f:
         f.write("\n".join(rows) + "\n")
     return 0

@@ -1,18 +1,13 @@
-"""Execute the mesh path on REAL TPU hardware — a 1-device mesh.
+"""Execute the mesh path on one GPU — a 1-device mesh.
 
-Every parallel/ artifact before round 5 ran on virtual CPU devices
-(tests/conftest.py forces jax_platforms=cpu). Multi-chip hardware is not
-available in this environment, but a 1-device mesh exercises the entire
-mesh machinery on the real runtime — shard_map lowering, the collective
-ops (degenerate but still lowered), the slab/rect Pallas kernels compiled
-by the real Mosaic backend, sharded buffer layouts — and measures the
-SHARDING TAX: fused mesh-epoch time vs the plain fit() epoch, the number
-that predicts whether multi-chip would pay (SURVEY.md §4's staged plan:
-CPU-mesh simulation BEFORE real pod runs — this is the second stage at the
-only device count the environment offers).
+A 1-device mesh exercises the entire mesh machinery on the card —
+shard_map lowering, the collective ops (degenerate but still lowered), the
+slab tile product, sharded buffer layouts — and measures the SHARDING TAX:
+fused mesh-epoch time vs the plain fit() epoch, the number that says what
+the single-device path would pay for running as a 1-device mesh.
 
-Routes: GCN over hybrid tile slabs and GAT over the gat_mesh_pack rect
-tile attention, both under the boundary halo, on cora and synth-reddit.
+Routes: GCN over hybrid tile slabs under the boundary halo and GAT over the
+flat COO partition, on cora and synth-reddit.
 
 Usage:
     python harness/mesh_onechip.py [--epochs N] [--reps N] [--routes r1,r2]
@@ -33,30 +28,33 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-from parallel_gcn_tpu.config import default_params_path, load_config
-from parallel_gcn_tpu.data.parser import TRAIN, VAL, prepare_host_dataset
-from parallel_gcn_tpu.optim import init_adam
-from parallel_gcn_tpu.train import init_model_params
+from parallel_gcn.config import default_params_path, load_config
+from parallel_gcn.data.parser import TRAIN, VAL, prepare_host_dataset
+from parallel_gcn.optim import init_adam
+from parallel_gcn.train import init_model_params
+from parallel_gcn.utils.cache import enable_compile_cache
+from parallel_gcn.utils.device import require_gpu
 
 ROUTES = {
     # route -> (dataset, overrides applied to the dataset's tuned config)
     "cora-gcn": ("cora", dict(backend="hybrid")),
-    "cora-gat": ("cora", dict(backend="hybrid", model="gat", heads=2,
+    "cora-gat": ("cora", dict(backend="segment", model="gat", heads=2,
                               hidden_dims=(8,), dropouts=(0.1, 0.1))),
     "reddit-gcn": ("synth-reddit", dict()),
-    "reddit-gat": ("synth-reddit", dict(model="gat", heads=2,
-                                        hidden_dims=(32,),
-                                        dropouts=(0.0, 0.1))),
+    "reddit-gat": ("synth-reddit", dict(backend="segment", model="gat",
+                                        heads=2, hidden_dims=(32,),
+                                        dropouts=(0.0, 0.1),
+                                        edge_chunk=1048576, remat=True)),
 }
 
 
 def build_route(name: str, epochs: int):
     """Mirror fit_parallel's mesh setup exactly (train_parallel.py:1769-1814)
     for a 1-device mesh, returning the FUSED run and its device inputs."""
-    from parallel_gcn_tpu.parallel.partition import (
-        gat_mesh_pack, partition_graph_hybrid,
+    from parallel_gcn.parallel.partition import (
+        partition_graph, partition_graph_hybrid,
     )
-    from parallel_gcn_tpu.parallel.train_parallel import (
+    from parallel_gcn.parallel.train_parallel import (
         device_put_sharded_inputs, make_mesh, make_parallel_run,
         shard_dataset,
     )
@@ -66,34 +64,34 @@ def build_route(name: str, epochs: int):
     cfg.gcn.epochs = epochs
     cfg.gcn.early_stopping = 0
     cfg.train.verbose = False
-    cfg.tpu.matmul_precision = "default"
+    cfg.exec.matmul_precision = "default"
     for k, v in over.items():
         if hasattr(cfg.gcn, k):
             setattr(cfg.gcn, k, v)
         else:
-            setattr(cfg.tpu, k, v)
-    gat = cfg.gcn.model == "gat"
-    if gat:
-        cfg.tpu.edge_chunk = 0  # the tile backend bounds memory at O(N·heads)
+            setattr(cfg.exec, k, v)
     # prepare_host_dataset applies the dataset's tuned reorder, exactly like
     # the CLI path that feeds fit_parallel
     ds = prepare_host_dataset(cfg, dataset)
-    tile_dtype = cfg.tpu.tile_dtype
+    tile_dtype = cfg.exec.tile_dtype
     if tile_dtype == "auto":
         tile_dtype = (
-            "float32" if cfg.tpu.matmul_precision == "highest" else "bfloat16"
+            "float32" if cfg.exec.matmul_precision == "highest" else "bfloat16"
         )
-    sgraph = partition_graph_hybrid(
-        ds.graph, 1, node_pad=cfg.tpu.node_pad,
-        tile_r=cfg.tpu.tile_size, tile_c=cfg.tpu.tile_cols,
-        tile_dtype=np.dtype(tile_dtype),
-        tile_budget_bytes=cfg.tpu.tile_budget_mb * 1024 * 1024,
-        min_tile_nnz=cfg.tpu.min_tile_nnz or None,
-        boundary=True,
-        boundary_fallback=cfg.tpu.halo_fallback,
-    )
-    if gat:
-        sgraph = gat_mesh_pack(sgraph)
+    if cfg.exec.backend == "hybrid":
+        sgraph = partition_graph_hybrid(
+            ds.graph, 1, node_pad=cfg.exec.node_pad,
+            tile_r=cfg.exec.tile_size, tile_c=cfg.exec.tile_cols,
+            tile_dtype=np.dtype(tile_dtype),
+            tile_budget_bytes=cfg.exec.tile_budget_mb * 1024 * 1024,
+            min_tile_nnz=cfg.exec.min_tile_nnz or None,
+            boundary=True,
+            boundary_fallback=cfg.exec.halo_fallback,
+        )
+    else:
+        sgraph = partition_graph(ds.graph, 1, node_pad=cfg.exec.node_pad,
+                                 boundary=True,
+                                 boundary_fallback=cfg.exec.halo_fallback)
     mesh = make_mesh(1)
     x, labels, split = shard_dataset(ds, sgraph)
     inputs = device_put_sharded_inputs(mesh, sgraph, x, labels, split)
@@ -116,16 +114,15 @@ def main() -> int:
     ap.add_argument("--routes", default=",".join(ROUTES))
     args = ap.parse_args()
 
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache)
+    require_gpu()
+    enable_compile_cache()
     dev = jax.devices()[0]
     rows = []
     for name in args.routes.split(","):
         epochs = args.reddit_epochs if name.startswith("reddit") else args.epochs
         try:
             run, fresh_weights, inputs, cfg = build_route(name, epochs)
-            key = jax.random.PRNGKey(cfg.tpu.seed)
+            key = jax.random.PRNGKey(cfg.exec.seed)
 
             def once():
                 w = fresh_weights()

@@ -2,9 +2,9 @@
 performance_cpu harness (test/performance_cpu.cpp: averaged epoch time of the
 single-threaded CPU baseline, the denominator of the published speedups).
 
-Times the pure-NumPy golden path (parallel_gcn_tpu/golden.py — the semantic
+Times the pure-NumPy golden path (parallel_gcn/golden.py — the semantic
 oracle every op is tested against) for one full train epoch (forward + full
-hand-written backward + Adam) per dataset, and reports our TPU epoch time's
+hand-written backward + Adam) per dataset, and reports our GPU epoch time's
 speedup over it, next to the reference's published GPU-vs-CPU speedups
 (report p.12 Table 3: 18.0-42.4x).
 
@@ -24,9 +24,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from parallel_gcn_tpu.config import default_params_path, load_config
-from parallel_gcn_tpu.data.parser import load_dataset
-from parallel_gcn_tpu.golden import (
+from parallel_gcn.config import default_params_path, load_config
+from parallel_gcn.data.parser import load_dataset
+from parallel_gcn.golden import (
     GoldenAdamState,
     glorot_range,
     golden_adam_step,
@@ -106,7 +106,7 @@ def main() -> int:
             continue
         ref = REFERENCE_CPU_MS.get(name)
         # note: the golden path is the dense-math ORACLE (correctness spec),
-        # not an optimized CPU implementation — compare TPU numbers against
+        # not an optimized CPU implementation — compare GPU numbers against
         # the reference's own published CPU/GPU baselines (BASELINE.md)
         line = f"{name:14s} golden-oracle epoch {r['golden_epoch_ms']:.2f} ms"
         if ref:

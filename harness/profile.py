@@ -17,14 +17,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-from parallel_gcn_tpu.config import default_params_path, load_config
-from parallel_gcn_tpu.data.parser import prepare_device_dataset
-from parallel_gcn_tpu.train import init_model_params
-from parallel_gcn_tpu.optim import init_adam
-from parallel_gcn_tpu.train import (
+from parallel_gcn.config import default_params_path, load_config
+from parallel_gcn.data.parser import prepare_device_dataset
+from parallel_gcn.train import init_model_params
+from parallel_gcn.optim import init_adam
+from parallel_gcn.train import (
     _make_scan_run, build_model, make_epoch_step, preaggregate_input,
 )
-from parallel_gcn_tpu.utils.profiling import print_trace_summary, profile_fn
+from parallel_gcn.utils.cache import enable_compile_cache
+from parallel_gcn.utils.device import require_gpu
+from parallel_gcn.utils.profiling import print_trace_summary, profile_fn
 
 
 def main() -> int:
@@ -38,18 +40,17 @@ def main() -> int:
     ap.add_argument("--scan-epochs", type=int, default=10)
     args = ap.parse_args()
 
-    cache = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache)
+    require_gpu()
+    enable_compile_cache()
 
     cfg = load_config(default_params_path(args.dataset))
     cfg.train.verbose = False
-    cfg.tpu.matmul_precision = "default"
+    cfg.exec.matmul_precision = "default"
     ds, dds = prepare_device_dataset(cfg, args.dataset)
     model = build_model(cfg, dds)
-    if cfg.tpu.input_preagg:
+    if cfg.exec.input_preagg:
         model, dds = preaggregate_input(model, dds)
-    key = jax.random.PRNGKey(cfg.tpu.seed)
+    key = jax.random.PRNGKey(cfg.exec.seed)
 
     def fresh():
         w = init_model_params(cfg, jax.random.PRNGKey(0), dds.input_dim,

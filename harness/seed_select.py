@@ -1,4 +1,4 @@
-"""Per-dataset seed selection — the TPU-native analog of the reference's
+"""Per-dataset seed selection — the analog of the reference's
 shipped tuned seeds (reference parameters/parameters_cora.txt seed=1382895624,
 report p.14: `make run-<ds>` reproduces the published Table 5 test accuracy
 with a per-dataset seed chosen from its own RNG stream).
@@ -7,7 +7,7 @@ Our RNG is threefry, so the reference's Philox seeds are inert — we must tune
 our own. This harness sweeps seeds using EXACTLY the `fit()` key derivation
 (train.py:500-502: key = PRNGKey(seed); key, init_key = split(key)), so a
 selected seed written to parameters/parameters_<ds>.txt reproduces verbatim
-through `python -m parallel_gcn_tpu <ds>` / `make run-<ds>`.
+through `python -m parallel_gcn <ds>` / `make run-<ds>`.
 
 All seeds in a batch train simultaneously via jax.vmap over the fused
 whole-run program (same trick as harness/accuracy.py).
@@ -32,11 +32,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from parallel_gcn_tpu.config import default_params_path, load_config
-from parallel_gcn_tpu.data.parser import TEST, prepare_device_dataset
-from parallel_gcn_tpu.train import init_model_params
-from parallel_gcn_tpu.optim import init_adam
-from parallel_gcn_tpu.train import (
+from parallel_gcn.config import default_params_path, load_config
+from parallel_gcn.data.parser import TEST, prepare_device_dataset
+from parallel_gcn.train import init_model_params
+from parallel_gcn.optim import init_adam
+from parallel_gcn.train import (
     _make_scan_run,
     build_model,
     make_eval_fn,
@@ -54,7 +54,7 @@ def sweep_seeds(dataset: str, n_seeds: int, batch: int, base: int):
 
     ds, dds = prepare_device_dataset(cfg, dataset)
     model = build_model(cfg, dds)
-    if cfg.tpu.input_preagg:
+    if cfg.exec.input_preagg:
         model, dds = preaggregate_input(model, dds)
     run = _make_scan_run(model, cfg, dds)
     test_fn = make_eval_fn(model, cfg, dds, TEST)
@@ -91,7 +91,7 @@ def sweep_seeds(dataset: str, n_seeds: int, batch: int, base: int):
     # sweep batches every candidate's matmuls together, and under bf16 those
     # batched numerics can diverge from a solo run over a long early-stopped
     # trajectory (observed: citeseer seed 1870 scored 80.30 in-sweep but
-    # 78.70 solo). Only a solo score transfers to `python -m parallel_gcn_tpu
+    # 78.70 solo). Only a solo score transfers to `python -m parallel_gcn
     # <ds>`, so the written ranking re-scores the head of the list solo.
     verified = []
     for s, _, _, _ in rows[:RE_VERIFY_TOP]:

@@ -25,11 +25,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from parallel_gcn_tpu.config import default_params_path, load_config
-from parallel_gcn_tpu.data.parser import prepare_device_dataset
-from parallel_gcn_tpu.train import init_model_params
-from parallel_gcn_tpu.optim import init_adam
-from parallel_gcn_tpu.train import _make_scan_run, build_model
+from parallel_gcn.config import default_params_path, load_config
+from parallel_gcn.data.parser import prepare_device_dataset
+from parallel_gcn.train import init_model_params
+from parallel_gcn.optim import init_adam
+from parallel_gcn.train import _make_scan_run, build_model
 
 # reference grids (test/tuning_accuracy.cpp:56-83), trimmed to fit a round
 PRESETS = {
@@ -51,10 +51,10 @@ PRESETS = {
 def sweep(dataset: str, preset: str, seeds: int, epochs: int):
     import dataclasses
 
-    from parallel_gcn_tpu.ops.graphsum import graphsum
+    from parallel_gcn.ops.graphsum import graphsum
 
     base = load_config(default_params_path(dataset))
-    base.tpu.matmul_precision = "default"
+    base.exec.matmul_precision = "default"
     ds, dds = prepare_device_dataset(base, dataset)
 
     # Â·X is config-independent — compute it ONCE for the whole sweep instead
@@ -80,13 +80,13 @@ def sweep(dataset: str, preset: str, seeds: int, epochs: int):
         cfg.gcn.dropouts = (dropout,) * n_layers
         cfg.gcn.epochs = epochs
         cfg.adam.weight_decay = wd
-        cfg.tpu.matmul_precision = "default"
+        cfg.exec.matmul_precision = "default"
         cfg.train.verbose = False
         model = build_model(cfg, dds)
         # keep the shared ``dds`` pristine (a dropout-0 config swaps x for Â·X)
         # and reuse the sweep-wide Â·X instead of recomputing it per config
         cfg_model, cfg_dds = model, dds
-        if cfg.tpu.input_preagg:
+        if cfg.exec.input_preagg:
             if model.dropouts[0] == 0.0:
                 cfg_model = dataclasses.replace(model, input_preagg=True)
                 cfg_dds = dataclasses.replace(dds, x=x_agg_once)

@@ -1,10 +1,10 @@
-"""Execution-layout tuning harness — the TPU analog of the reference's
+"""Execution-layout tuning harness — the analog of the reference's
 tuning_cuda sweep (test/tuning_cuda.cpp: grid search over blocks-factor ×
 thread counts per dataset).
 
-On TPU there is no launch geometry; the equivalent knobs are the aggregation
-backend, the node reordering, and the block-sparse tile size/budget. This
-sweeps them for one dataset, measures fused-run epoch time on the real chip,
+Here the knobs are not launch geometry but the aggregation backend, the node
+reordering, and the block-sparse tile size/budget. This sweeps them for one
+dataset, measures fused-run epoch time on the GPU,
 and writes output/tuning_layout_<dataset>.txt sorted fastest-first — the numbers
 that justify each parameters/parameters_<dataset>.txt layout choice.
 
@@ -25,11 +25,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-from parallel_gcn_tpu.config import default_params_path, load_config
-from parallel_gcn_tpu.data.parser import prepare_device_dataset
-from parallel_gcn_tpu.train import init_model_params
-from parallel_gcn_tpu.optim import init_adam
-from parallel_gcn_tpu.train import _make_scan_run, build_model, preaggregate_input
+from parallel_gcn.config import default_params_path, load_config
+from parallel_gcn.data.parser import prepare_device_dataset
+from parallel_gcn.train import init_model_params
+from parallel_gcn.optim import init_adam
+from parallel_gcn.train import _make_scan_run, build_model, preaggregate_input
 
 # (backend, reorder, tile_size, tile_cols multiplier); tile knobs are ignored
 # outside bcsr/hybrid
@@ -50,26 +50,26 @@ def time_layout(dataset: str, backend: str, reorder: str, tile: int,
     cfg.gcn.epochs = epochs
     cfg.gcn.early_stopping = 0
     cfg.train.verbose = False
-    cfg.tpu.matmul_precision = "default"
-    cfg.tpu.backend = backend
-    cfg.tpu.reorder = reorder
-    cfg.tpu.tile_size = tile
-    cfg.tpu.tile_cols = tile_cols
-    cfg.tpu.tile_dtype = tile_dtype
-    cfg.tpu.adj_dtype = adj_dtype
+    cfg.exec.matmul_precision = "default"
+    cfg.exec.backend = backend
+    cfg.exec.reorder = reorder
+    cfg.exec.tile_size = tile
+    cfg.exec.tile_cols = tile_cols
+    cfg.exec.tile_dtype = tile_dtype
+    cfg.exec.adj_dtype = adj_dtype
     if min_tile_nnz is not None:
-        cfg.tpu.min_tile_nnz = min_tile_nnz
+        cfg.exec.min_tile_nnz = min_tile_nnz
     try:
         ds, dds = prepare_device_dataset(cfg, dataset)
         model = build_model(cfg, dds)
-        if cfg.tpu.input_preagg:
+        if cfg.exec.input_preagg:
             model, dds = preaggregate_input(model, dds)
         run = _make_scan_run(model, cfg, dds)
-        key = jax.random.PRNGKey(cfg.tpu.seed)
+        key = jax.random.PRNGKey(cfg.exec.seed)
 
         def once():
             w = init_model_params(
-                cfg, jax.random.PRNGKey(cfg.tpu.seed), dds.input_dim,
+                cfg, jax.random.PRNGKey(cfg.exec.seed), dds.input_dim,
                 dds.output_dim,
             )
             out = run(w, init_adam(w), key)

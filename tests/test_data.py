@@ -4,14 +4,14 @@
 import numpy as np
 import pytest
 
-from parallel_gcn_tpu.data.graph import (
+from parallel_gcn.data.graph import (
     add_self_loops_csr,
     build_graph,
     normalized_adjacency_values,
     pad_to_multiple,
     random_graph,
 )
-from parallel_gcn_tpu.data.parser import load_dataset
+from parallel_gcn.data.parser import load_dataset
 from tests.conftest import has_dataset, requires_cora
 
 
@@ -102,10 +102,10 @@ def test_native_loader_matches_python():
     if not has_dataset("citeseer"):
         _pytest.skip("citeseer not available")
     try:
-        from parallel_gcn_tpu.data import native
+        from parallel_gcn.data import native
 
         result = native.load_dataset_native(
-            __import__("parallel_gcn_tpu.data.parser", fromlist=["find_data_dir"]).find_data_dir("citeseer"),
+            __import__("parallel_gcn.data.parser", fromlist=["find_data_dir"]).find_data_dir("citeseer"),
             "citeseer",
             False,
         )
@@ -129,7 +129,7 @@ def test_native_loader_rejects_overflowing_ids(tmp_path):
     import pytest as _pytest
 
     try:
-        from parallel_gcn_tpu.data import native
+        from parallel_gcn.data import native
 
         native._get_lib()
     except Exception:
@@ -144,7 +144,7 @@ def test_native_loader_rejects_overflowing_ids(tmp_path):
 def test_local_clustering_coefficient():
     """Triangle graph + pendant: verify against hand-computed values
     (reference parser experiment, src/parser.cpp:135-162)."""
-    from parallel_gcn_tpu.data.graph import (
+    from parallel_gcn.data.graph import (
         add_self_loops_csr,
         local_clustering_coefficient,
     )
@@ -166,11 +166,11 @@ def test_native_label_propagation_matches_numpy():
     """csrc/loader.cpp pgcn_community_labels vs the NumPy spec — identical
     labels (including the ties-toward-larger-label rule and isolated rows)."""
     try:
-        from parallel_gcn_tpu.data.native import community_labels_native
+        from parallel_gcn.data.native import community_labels_native
     except Exception:
         pytest.skip("native lib unavailable")
-    from parallel_gcn_tpu.data.graph import random_graph
-    from parallel_gcn_tpu.data.reorder import _propagate_labels_numpy
+    from parallel_gcn.data.graph import random_graph
+    from parallel_gcn.data.reorder import _propagate_labels_numpy
 
     csr, _ = random_graph(400, 5, seed=9)
     rows = csr.row_ids().astype(np.int64)
@@ -191,8 +191,8 @@ def test_local_clustering_coefficient_matches_reference_semantics():
     """Mirror of the reference's unused graph-analysis experiment
     (src/parser.cpp:135-162) — verified against a literal transcription of
     its triple loop on a small fixture (self-loop quirks included)."""
-    from parallel_gcn_tpu.data.graph import add_self_loops_csr
-    from parallel_gcn_tpu.data.parser import local_clustering_coefficient
+    from parallel_gcn.data.graph import add_self_loops_csr
+    from parallel_gcn.data.parser import local_clustering_coefficient
 
     rng = np.random.default_rng(3)
     n = 24
@@ -240,12 +240,12 @@ def test_duplicate_edges_coalesce_and_backends_agree():
     operator on duplicated inputs."""
     import jax.numpy as jnp
 
-    from parallel_gcn_tpu.data.graph import (
+    from parallel_gcn.data.graph import (
         add_self_loops_csr,
         build_graph,
         coalesce_duplicate_edges,
     )
-    from parallel_gcn_tpu.ops.graphsum import graphsum
+    from parallel_gcn.ops.graphsum import graphsum
 
     # node 0 lists node 1 twice (like cora's raw lines); symmetric mirror
     lists = [
@@ -285,8 +285,8 @@ def test_duplicate_self_loop_int8_exact():
     src/parser.cpp:35-44)."""
     import jax.numpy as jnp
 
-    from parallel_gcn_tpu.data.graph import add_self_loops_csr, build_graph
-    from parallel_gcn_tpu.ops.graphsum import graphsum
+    from parallel_gcn.data.graph import add_self_loops_csr, build_graph
+    from parallel_gcn.ops.graphsum import graphsum
 
     # node 0 lists itself (self-citation) → coalesced self-loop k=2;
     # node 1 lists itself twice → k=3
@@ -331,8 +331,8 @@ def test_permute_csr_is_exact_similarity():
     with their edges. Recomputing values from the coalesced CSR's degrees
     would change the operator on duplicate-carrying graphs (the coalesced
     row length undercounts the reference's duplicate-inclusive degree)."""
-    from parallel_gcn_tpu.data.graph import add_self_loops_csr
-    from parallel_gcn_tpu.data.reorder import permute_csr
+    from parallel_gcn.data.graph import add_self_loops_csr
+    from parallel_gcn.data.reorder import permute_csr
 
     lists = [
         np.array([0, 1, 2], dtype=np.int32),  # duplicate self-loop on 0

@@ -1,26 +1,17 @@
-"""Hybrid (Pallas tiles + COO residual) backend and reordering pipeline."""
+"""Hybrid (dense tiles + COO residual) backend and reordering pipeline."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from parallel_gcn_tpu.config import Config, GCNConfig, TPUConfig, TrainConfig
-from parallel_gcn_tpu.data.graph import build_graph, random_graph, split_dense_tiles
-from parallel_gcn_tpu.data.parser import Dataset, to_device
-from parallel_gcn_tpu.data.reorder import community_order, permute_dataset
-from parallel_gcn_tpu.data.synthetic import synthetic_csr
-from parallel_gcn_tpu.ops import pallas_bcsr
-from parallel_gcn_tpu.ops.graphsum import graphsum, resolve_backend
-from parallel_gcn_tpu.train import fit
-
-
-@pytest.fixture(autouse=True)
-def _interpret_pallas():
-    old = pallas_bcsr._INTERPRET[0]
-    pallas_bcsr._INTERPRET[0] = jax.default_backend() == "cpu"
-    yield
-    pallas_bcsr._INTERPRET[0] = old
+from parallel_gcn.config import Config, GCNConfig, ExecConfig, TrainConfig
+from parallel_gcn.data.graph import build_graph, random_graph, split_dense_tiles
+from parallel_gcn.data.parser import Dataset, to_device
+from parallel_gcn.data.reorder import community_order, permute_dataset
+from parallel_gcn.data.synthetic import synthetic_csr
+from parallel_gcn.ops.graphsum import graphsum, resolve_backend
+from parallel_gcn.train import fit
 
 
 def test_split_dense_tiles_symmetric_and_budgeted():
@@ -154,7 +145,7 @@ def test_community_order_is_permutation_and_improves_tiling():
     assert sorted(perm.tolist()) == list(range(20000))
     n_pad = ((csr.n_rows + 127) // 128) * 128
     before = split_dense_tiles(csr.row_ids(), csr.indices, n_pad, 16).mean()
-    from parallel_gcn_tpu.data.reorder import permute_csr
+    from parallel_gcn.data.reorder import permute_csr
 
     csrp = permute_csr(csr, perm)
     after = split_dense_tiles(csrp.row_ids(), csrp.indices, n_pad, 16).mean()
@@ -179,7 +170,7 @@ def test_reordered_hybrid_training_matches_plain():
         cfg = Config(
             gcn=GCNConfig(n_layers=2, hidden_dims=(8,), dropouts=(0.0, 0.0),
                           epochs=8, early_stopping=0),
-            tpu=TPUConfig(backend=backend, input_preagg=False),
+            exec=ExecConfig(backend=backend, input_preagg=False),
             train=TrainConfig(verbose=False, mode="scan"),
         )
         dds = to_device(ds_run, hybrid=backend == "hybrid")

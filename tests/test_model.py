@@ -5,20 +5,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from parallel_gcn_tpu.config import AdamConfig, Config, GCNConfig, TPUConfig, TrainConfig
-from parallel_gcn_tpu.data.graph import build_graph, random_graph
-from parallel_gcn_tpu.data.parser import DeviceDataset
-from parallel_gcn_tpu.golden import (
+from parallel_gcn.config import AdamConfig, Config, GCNConfig, ExecConfig, TrainConfig
+from parallel_gcn.data.graph import build_graph, random_graph
+from parallel_gcn.data.parser import DeviceDataset
+from parallel_gcn.golden import (
     GoldenAdamState,
     glorot_range,
     golden_adam_step,
     golden_forward,
     golden_grads,
 )
-from parallel_gcn_tpu.models.gcn import GCNModel, glorot, init_params
-from parallel_gcn_tpu.ops.loss import masked_softmax_xent
-from parallel_gcn_tpu.optim import adam_step, init_adam
-from parallel_gcn_tpu.train import fit
+from parallel_gcn.models.gcn import GCNModel, glorot, init_params
+from parallel_gcn.ops.loss import masked_softmax_xent
+from parallel_gcn.optim import adam_step, init_adam
+from parallel_gcn.train import fit
 
 
 def _weights_np(key, dims):
@@ -30,7 +30,7 @@ def _synthetic(n=150, f=12, c=3, seed=0):
     """A separable synthetic node-classification problem: labels form graph
     communities (edges are mostly intra-class), features leak the label — so
     both the aggregation and the transform carry signal."""
-    from parallel_gcn_tpu.data.graph import add_self_loops_csr
+    from parallel_gcn.data.graph import add_self_loops_csr
 
     rng = np.random.default_rng(seed)
     labels = (np.arange(n) * c // n).astype(np.int32)  # contiguous communities
@@ -148,7 +148,7 @@ def _fit_synthetic(mode, backend="segment", epochs=60, n_layers=2,
                       dropouts=dropouts, epochs=epochs, early_stopping=0,
                       **gcn_kw),
         adam=AdamConfig(),
-        tpu=TPUConfig(backend=backend, seed=7),
+        exec=ExecConfig(backend=backend, seed=7),
         train=TrainConfig(verbose=False, mode=mode),
     )
     return fit(cfg, dds)
@@ -210,7 +210,7 @@ def test_early_stopping_triggers():
     cfg = Config(
         gcn=GCNConfig(n_layers=2, hidden_dims=(16,), dropouts=(0.5, 0.5),
                       epochs=500, early_stopping=5),
-        tpu=TPUConfig(backend="segment", seed=3),
+        exec=ExecConfig(backend="segment", seed=3),
         train=TrainConfig(verbose=False, mode="scan"),
     )
     result = fit(cfg, dds)
@@ -224,7 +224,7 @@ def test_early_stopping_triggers():
 def test_input_preagg_is_exact():
     """(Â·X)·W0 == Â·(X·W0): pre-aggregating the input (train.preaggregate_input)
     must reproduce the metric trajectory of the unhoisted model exactly."""
-    from parallel_gcn_tpu.data.parser import Dataset, to_device
+    from parallel_gcn.data.parser import Dataset, to_device
 
     csr, x, labels, split = _synthetic()
     ds = Dataset(
@@ -238,7 +238,7 @@ def test_input_preagg_is_exact():
         cfg = Config(
             gcn=GCNConfig(n_layers=2, hidden_dims=(8,), dropouts=(0.0, 0.0),
                           epochs=15, early_stopping=0),
-            tpu=TPUConfig(backend="segment", input_preagg=preagg),
+            exec=ExecConfig(backend="segment", input_preagg=preagg),
             train=TrainConfig(verbose=False, mode="scan"),
         )
         return fit(cfg, dds)
@@ -253,9 +253,9 @@ def test_input_preagg_with_dropout_hoists_eval_only():
     (model unchanged), but Â·X is stored for the eval forwards (x_agg), and
     the metric trajectory must match the unhoisted run exactly (same dropout
     key sequence; eval has no dropout so the hoist is pure reassociation)."""
-    from parallel_gcn_tpu.models.gcn import GCNModel
-    from parallel_gcn_tpu.data.parser import Dataset, to_device
-    from parallel_gcn_tpu.train import preaggregate_input
+    from parallel_gcn.models.gcn import GCNModel
+    from parallel_gcn.data.parser import Dataset, to_device
+    from parallel_gcn.train import preaggregate_input
 
     csr, x, labels, split = _synthetic()
     ds = Dataset(
@@ -273,7 +273,7 @@ def test_input_preagg_with_dropout_hoists_eval_only():
         cfg = Config(
             gcn=GCNConfig(n_layers=2, hidden_dims=(8,), dropouts=(0.4, 0.3),
                           epochs=12, early_stopping=0),
-            tpu=TPUConfig(backend="segment", input_preagg=preagg, seed=3),
+            exec=ExecConfig(backend="segment", input_preagg=preagg, seed=3),
             train=TrainConfig(verbose=False, mode="scan"),
         )
         return fit(cfg, dds)
@@ -286,10 +286,10 @@ def test_input_preagg_with_dropout_hoists_eval_only():
 def test_resume_scan_trains_remaining_epochs(tmp_path):
     """fit(resume_from=...) in scan mode must train epochs - start_epoch more
     epochs (the eager loop already did; the fused program's count is derived)."""
-    from parallel_gcn_tpu.data.parser import Dataset, to_device
-    from parallel_gcn_tpu.utils.checkpoint import save_checkpoint
-    from parallel_gcn_tpu.models.gcn import init_params
-    from parallel_gcn_tpu.optim import init_adam
+    from parallel_gcn.data.parser import Dataset, to_device
+    from parallel_gcn.utils.checkpoint import save_checkpoint
+    from parallel_gcn.models.gcn import init_params
+    from parallel_gcn.optim import init_adam
     import jax
 
     csr, x, labels, split = _synthetic()
@@ -306,7 +306,7 @@ def test_resume_scan_trains_remaining_epochs(tmp_path):
     cfg = Config(
         gcn=GCNConfig(n_layers=2, hidden_dims=(8,), dropouts=(0.0, 0.0),
                       epochs=10, early_stopping=0),
-        tpu=TPUConfig(backend="segment"),
+        exec=ExecConfig(backend="segment"),
         train=TrainConfig(verbose=False, mode="scan"),
     )
     res = fit(cfg, dds, resume_from=path)
@@ -320,7 +320,7 @@ def test_scan_chunked_checkpoint_matches_unchunked(tmp_path):
     exact — same metric history and test acc as one unchunked fused run —
     because _advance_key replays the per-epoch key splits between chunks.
     Nonzero dropout makes any key-stream drift visible."""
-    from parallel_gcn_tpu.data.parser import Dataset, to_device
+    from parallel_gcn.data.parser import Dataset, to_device
 
     csr, x, labels, split = _synthetic()
     ds = Dataset(
@@ -334,7 +334,7 @@ def test_scan_chunked_checkpoint_matches_unchunked(tmp_path):
         cfg = Config(
             gcn=GCNConfig(n_layers=2, hidden_dims=(8,), dropouts=(0.4, 0.3),
                           epochs=12, early_stopping=0),
-            tpu=TPUConfig(backend="segment", seed=5),
+            exec=ExecConfig(backend="segment", seed=5),
             train=TrainConfig(verbose=False, mode="scan",
                               checkpoint_dir=ckpt_dir,
                               checkpoint_every=every),
@@ -358,7 +358,7 @@ def test_scan_resume_from_chunk_continues_key_stream(tmp_path):
     """Resuming a scan run from an intermediate chunk checkpoint must CONTINUE
     the dropout-key stream (not replay the first epochs): the resumed tail's
     metrics must equal rows [5:] of the single uninterrupted run."""
-    from parallel_gcn_tpu.data.parser import Dataset, to_device
+    from parallel_gcn.data.parser import Dataset, to_device
 
     csr, x, labels, split = _synthetic()
     ds = Dataset(
@@ -372,7 +372,7 @@ def test_scan_resume_from_chunk_continues_key_stream(tmp_path):
         return Config(
             gcn=GCNConfig(n_layers=2, hidden_dims=(8,), dropouts=(0.4, 0.3),
                           epochs=12, early_stopping=0),
-            tpu=TPUConfig(backend="segment", seed=5),
+            exec=ExecConfig(backend="segment", seed=5),
             train=TrainConfig(verbose=False, mode="scan",
                               checkpoint_dir=ckpt_dir,
                               checkpoint_every=every),
@@ -392,9 +392,9 @@ def test_scan_resume_from_chunk_continues_key_stream(tmp_path):
 
 def test_checkpoint_resume(tmp_path):
     """Resume must continue training from the saved state."""
-    from parallel_gcn_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
-    from parallel_gcn_tpu.optim import init_adam
-    from parallel_gcn_tpu.models.gcn import init_params
+    from parallel_gcn.utils.checkpoint import load_checkpoint, save_checkpoint
+    from parallel_gcn.optim import init_adam
+    from parallel_gcn.models.gcn import init_params
     import jax
 
     w = init_params(jax.random.PRNGKey(0), 10, (8,), 3)
@@ -516,7 +516,7 @@ def test_fit_dense_int8_adj_matches_f32_trajectory():
     matrix + outside d-scaling must reproduce the f32-adjacency trajectory
     under matmul_precision=highest (the factorization is exact; only f32
     reassociation rounding differs)."""
-    from parallel_gcn_tpu.data.parser import Dataset, to_device
+    from parallel_gcn.data.parser import Dataset, to_device
 
     csr, x, labels, split = _synthetic()
     ds = Dataset(name="t", graph=csr, feature_csr=None, features=x,
@@ -529,7 +529,7 @@ def test_fit_dense_int8_adj_matches_f32_trajectory():
             gcn=GCNConfig(n_layers=2, hidden_dims=(16,), dropouts=(0.2, 0.2),
                           epochs=40, early_stopping=0),
             adam=AdamConfig(),
-            tpu=TPUConfig(backend="dense", seed=7,
+            exec=ExecConfig(backend="dense", seed=7,
                           matmul_precision="highest", adj_dtype=adj_dtype),
             train=TrainConfig(verbose=False, mode="scan"),
         )

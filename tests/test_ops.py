@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from parallel_gcn_tpu.golden import csr_matvec_dense, golden_loss_acc
-from parallel_gcn_tpu.ops.dropout import dropout
-from parallel_gcn_tpu.ops.graphsum import graphsum
-from parallel_gcn_tpu.ops.loss import l2_penalty, masked_softmax_xent
-from parallel_gcn_tpu.ops.sparse_matmul import (
+from parallel_gcn.golden import csr_matvec_dense, golden_loss_acc
+from parallel_gcn.ops.dropout import dropout
+from parallel_gcn.ops.graphsum import graphsum
+from parallel_gcn.ops.loss import l2_penalty, masked_softmax_xent
+from parallel_gcn.ops.sparse_matmul import (
     feature_transform,
     sparse_feature_transform,
 )
@@ -149,7 +149,7 @@ def test_dropout_inverted_scaling():
 
 
 def _int8_adj_graph(n=50, deg=6, seed=0):
-    from parallel_gcn_tpu.data.graph import build_graph, random_graph
+    from parallel_gcn.data.graph import build_graph, random_graph
 
     csr, _ = random_graph(n, avg_degree=deg, seed=seed)
     g8 = build_graph(csr, dense=True, adj_dtype=np.int8)
@@ -184,7 +184,7 @@ def test_graphsum_dense_int8_matches_f32():
 def test_graphsum_dense_int8_multiplicity():
     """Duplicate (coalesced) edges carry integer multiplicities k>1 in the
     reference data — the int8 pattern must store k, not saturate at 1."""
-    from parallel_gcn_tpu.data.graph import (
+    from parallel_gcn.data.graph import (
         HostCSR, build_graph, normalized_adjacency_values,
     )
 

@@ -14,16 +14,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from parallel_gcn_tpu.config import AdamConfig, Config, GCNConfig, TPUConfig, TrainConfig
-from parallel_gcn_tpu.data.graph import build_graph, random_graph
-from parallel_gcn_tpu.golden import golden_gin_forward, golden_sage_forward
-from parallel_gcn_tpu.models.sage import (
+from parallel_gcn.config import AdamConfig, Config, GCNConfig, ExecConfig, TrainConfig
+from parallel_gcn.data.graph import build_graph, random_graph
+from parallel_gcn.golden import golden_gin_forward, golden_sage_forward
+from parallel_gcn.models.sage import (
     GINModel,
     SAGEModel,
     init_gin_params,
     init_sage_params,
 )
-from parallel_gcn_tpu.train import fit
+from parallel_gcn.train import fit
 
 from tests.test_model import _synthetic
 
@@ -36,7 +36,7 @@ def _graph_pair(n=60, deg=5, seed=3, **kw):
 
 
 def _dataset():
-    from parallel_gcn_tpu.data.parser import Dataset
+    from parallel_gcn.data.parser import Dataset
 
     csr, x, labels, split = _synthetic()
     return Dataset(
@@ -89,17 +89,7 @@ def test_gin_forward_matches_golden(n_layers, eps):
                                    err_msg=backend)
 
 
-@pytest.fixture
-def interpret_pallas():
-    from parallel_gcn_tpu.ops import pallas_bcsr
-
-    old = pallas_bcsr._INTERPRET[0]
-    pallas_bcsr._INTERPRET[0] = jax.default_backend() == "cpu"
-    yield
-    pallas_bcsr._INTERPRET[0] = old
-
-
-def test_sage_gin_hybrid_tiles_match_golden(interpret_pallas):
+def test_sage_gin_hybrid_tiles_match_golden():
     """The diagonal rewrite must survive the hybrid tile pack (dense tiles +
     COO residual) — the backend the big graphs actually run."""
     csr, x, _, _ = _synthetic(n=300)
@@ -127,7 +117,7 @@ def test_sage_gin_hybrid_tiles_match_golden(interpret_pallas):
 
 @pytest.mark.parametrize("family", ["sage", "gin"])
 def test_backend_gradient_parity(family):
-    """dense (MXU matmul vs Â) and segment (scatter-add over COO) are
+    """dense (matmul vs Â) and segment (scatter-add over COO) are
     independent aggregation implementations — gradients must agree."""
     csr, g = _graph_pair()
     rng = np.random.default_rng(2)
@@ -194,7 +184,7 @@ def test_trains_end_to_end(model, mode):
     default input_preagg=True knob left ON (regression: the trainer reads
     model.input_preagg unconditionally; a missing trainer-contract field
     crashed make_eval_fn before the first epoch)."""
-    from parallel_gcn_tpu.data.parser import to_device
+    from parallel_gcn.data.parser import to_device
 
     ds = _dataset()
     dds = to_device(ds)
@@ -202,7 +192,7 @@ def test_trains_end_to_end(model, mode):
         gcn=GCNConfig(n_layers=2, hidden_dims=(8,), dropouts=(0.1, 0.1),
                       epochs=40, early_stopping=0, model=model),
         adam=AdamConfig(learning_rate=0.02, weight_decay=5e-4),
-        tpu=TPUConfig(backend="segment", dense_threshold=0,
+        exec=ExecConfig(backend="segment", dense_threshold=0,
                       matmul_precision="highest", seed=4, input_preagg=True),
         train=TrainConfig(verbose=False, mode=mode),
     )
@@ -217,7 +207,7 @@ def test_scan_matches_eager(model):
     """The fused scan run must reproduce the eager loop's trajectory (same
     key schedule; deferred-eval lane stacking gated OFF via
     supports_deferred_eval=False)."""
-    from parallel_gcn_tpu.data.parser import to_device
+    from parallel_gcn.data.parser import to_device
 
     dds = to_device(_dataset())
 
@@ -225,7 +215,7 @@ def test_scan_matches_eager(model):
         cfg = Config(
             gcn=GCNConfig(n_layers=2, hidden_dims=(8,), dropouts=(0.3, 0.3),
                           epochs=12, early_stopping=0, model=model),
-            tpu=TPUConfig(backend="segment", dense_threshold=0,
+            exec=ExecConfig(backend="segment", dense_threshold=0,
                           matmul_precision="highest", seed=7),
             train=TrainConfig(verbose=False, mode=mode),
         )
@@ -242,8 +232,8 @@ def test_checkpoint_roundtrip_and_resume(model, tmp_path):
     sets ({w1, w2} inner / {w1} classifier) — the npz flattening must
     round-trip arbitrary dict keys via the per-layer key manifest (regression
     for a review finding: the old fixed-GAT-key assert raised on both)."""
-    from parallel_gcn_tpu.data.parser import to_device
-    from parallel_gcn_tpu.utils.checkpoint import load_checkpoint
+    from parallel_gcn.data.parser import to_device
+    from parallel_gcn.utils.checkpoint import load_checkpoint
 
     dds = to_device(_dataset())
 
@@ -251,7 +241,7 @@ def test_checkpoint_roundtrip_and_resume(model, tmp_path):
         return Config(
             gcn=GCNConfig(n_layers=2, hidden_dims=(8,), dropouts=(0.3, 0.3),
                           epochs=10, early_stopping=0, model=model),
-            tpu=TPUConfig(backend="segment", dense_threshold=0, seed=5),
+            exec=ExecConfig(backend="segment", dense_threshold=0, seed=5),
             train=TrainConfig(verbose=False, mode="scan",
                               checkpoint_dir=ckpt_dir,
                               checkpoint_every=every),
@@ -285,21 +275,20 @@ def test_checkpoint_roundtrip_and_resume(model, tmp_path):
     ("gin", "adaptive", "segment"),
     ("gin", "boundary", "hybrid"),
 ])
-def test_fit_parallel_matches_single_chip(model, halo, backend,
-                                          interpret_pallas):
+def test_fit_parallel_matches_single_chip(model, halo, backend):
     """Mesh SAGE/GIN must reproduce the single-chip trajectory across every
     halo mode AND the hybrid tile slabs — the diagonal rewrite scales local
     rows before the exchange, so each halo design ships the scaled rows with
     no path-specific handling."""
-    from parallel_gcn_tpu.data.parser import to_device
-    from parallel_gcn_tpu.parallel.train_parallel import fit_parallel
+    from parallel_gcn.data.parser import to_device
+    from parallel_gcn.parallel.train_parallel import fit_parallel
 
     ds = _dataset()
     gcn_cfg = GCNConfig(n_layers=2, hidden_dims=(8,), dropouts=(0.0, 0.0),
                         epochs=12, early_stopping=0, model=model)
     cfg = Config(
         gcn=gcn_cfg,
-        tpu=TPUConfig(backend=backend, seed=7, n_devices=4, halo=halo,
+        exec=ExecConfig(backend=backend, seed=7, n_devices=4, halo=halo,
                       matmul_precision="highest", halo_fallback=False,
                       min_tile_nnz=4 if backend == "hybrid" else 0),
         train=TrainConfig(verbose=False, mode="scan"),
@@ -308,7 +297,7 @@ def test_fit_parallel_matches_single_chip(model, halo, backend,
 
     single_cfg = Config(
         gcn=gcn_cfg,
-        tpu=TPUConfig(backend="segment", dense_threshold=0, seed=7,
+        exec=ExecConfig(backend="segment", dense_threshold=0, seed=7,
                       matmul_precision="highest"),
         train=TrainConfig(verbose=False, mode="scan"),
     )
@@ -329,7 +318,7 @@ def test_fit_parallel_matches_single_chip(model, halo, backend,
 def test_fit_parallel_learns_with_dropout_and_remat():
     """Mesh SAGE with dropout (per-device folded keys) + remat must still
     learn; mesh GIN eager mode exercises the per-epoch step path."""
-    from parallel_gcn_tpu.parallel.train_parallel import fit_parallel
+    from parallel_gcn.parallel.train_parallel import fit_parallel
 
     ds = _dataset()
     for model, mode in (("sage", "scan"), ("gin", "eager")):
@@ -338,7 +327,7 @@ def test_fit_parallel_learns_with_dropout_and_remat():
                           epochs=40, early_stopping=0, model=model,
                           remat=True),
             adam=AdamConfig(learning_rate=0.02, weight_decay=5e-4),
-            tpu=TPUConfig(backend="segment", seed=4, n_devices=4,
+            exec=ExecConfig(backend="segment", seed=4, n_devices=4,
                           halo="boundary", halo_fallback=False),
             train=TrainConfig(verbose=False, mode=mode),
         )
@@ -359,8 +348,8 @@ def test_fit_parallel_tp_matches_single_chip(model, n_layers, hidden):
     per-layer matmuls on the GCN's alternating col/row schedule; GIN Megatron-
     shards each layer's MLP pair. A 4×2 (nodes, feat) mesh must reproduce the
     single-chip trajectory."""
-    from parallel_gcn_tpu.data.parser import to_device
-    from parallel_gcn_tpu.parallel.train_parallel import fit_parallel
+    from parallel_gcn.data.parser import to_device
+    from parallel_gcn.parallel.train_parallel import fit_parallel
 
     ds = _dataset()
     gcn_cfg = GCNConfig(n_layers=n_layers, hidden_dims=hidden,
@@ -368,7 +357,7 @@ def test_fit_parallel_tp_matches_single_chip(model, n_layers, hidden):
                         early_stopping=0, model=model)
     cfg = Config(
         gcn=gcn_cfg,
-        tpu=TPUConfig(backend="segment", seed=7, n_devices=4, tp=2,
+        exec=ExecConfig(backend="segment", seed=7, n_devices=4, tp=2,
                       matmul_precision="highest"),
         train=TrainConfig(verbose=False, mode="scan"),
     )
@@ -376,7 +365,7 @@ def test_fit_parallel_tp_matches_single_chip(model, n_layers, hidden):
 
     single_cfg = Config(
         gcn=gcn_cfg,
-        tpu=TPUConfig(backend="segment", dense_threshold=0, seed=7,
+        exec=ExecConfig(backend="segment", dense_threshold=0, seed=7,
                       matmul_precision="highest"),
         train=TrainConfig(verbose=False, mode="scan"),
     )
@@ -395,7 +384,7 @@ def test_fit_parallel_tp_matches_single_chip(model, n_layers, hidden):
 def test_parallel_tp_learns_with_dropout_and_validates_dims():
     """TP SAGE/GIN with dropout + remat still learns (per-device folded keys;
     GIN keeps feat-replicated masks), and indivisible dims raise early."""
-    from parallel_gcn_tpu.parallel.train_parallel import fit_parallel
+    from parallel_gcn.parallel.train_parallel import fit_parallel
 
     ds = _dataset()
     for model in ("sage", "gin"):
@@ -404,7 +393,7 @@ def test_parallel_tp_learns_with_dropout_and_validates_dims():
                           epochs=40, early_stopping=0, model=model,
                           remat=True),
             adam=AdamConfig(learning_rate=0.02, weight_decay=5e-4),
-            tpu=TPUConfig(backend="segment", seed=7, n_devices=4, tp=2),
+            exec=ExecConfig(backend="segment", seed=7, n_devices=4, tp=2),
             train=TrainConfig(verbose=False, mode="scan"),
         )
         res = fit_parallel(cfg, ds)
@@ -414,7 +403,7 @@ def test_parallel_tp_learns_with_dropout_and_validates_dims():
     cfg = Config(
         gcn=GCNConfig(n_layers=2, hidden_dims=(7,), dropouts=(0.0, 0.0),
                       epochs=2, early_stopping=0, model="gin"),
-        tpu=TPUConfig(backend="segment", n_devices=4, tp=2),
+        exec=ExecConfig(backend="segment", n_devices=4, tp=2),
         train=TrainConfig(verbose=False),
     )
     with pytest.raises(ValueError, match="divisible by tp"):
@@ -424,7 +413,7 @@ def test_parallel_tp_learns_with_dropout_and_validates_dims():
 def test_early_stopping_and_residual_paths():
     """The shared trainer's remaining knobs (early stopping rule, residual
     connections) run the new families without error and stay finite."""
-    from parallel_gcn_tpu.data.parser import to_device
+    from parallel_gcn.data.parser import to_device
 
     dds = to_device(_dataset())
     for model in ("sage", "gin"):
@@ -432,7 +421,7 @@ def test_early_stopping_and_residual_paths():
             gcn=GCNConfig(n_layers=3, hidden_dims=(8, 8),
                           dropouts=(0.2,) * 3, epochs=30, early_stopping=5,
                           model=model, residual=True),
-            tpu=TPUConfig(backend="segment", dense_threshold=0, seed=6),
+            exec=ExecConfig(backend="segment", dense_threshold=0, seed=6),
             train=TrainConfig(verbose=False, mode="scan"),
         )
         res = fit(cfg, dds)
